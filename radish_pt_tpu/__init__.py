@@ -1,6 +1,6 @@
-"""radish_pt_tpu — a TPU-native physically based path-tracing framework.
+"""radish_pt_tpu — a physically based wavefront path-tracing framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capability set of the CUDA
+Built from scratch in JAX/XLA with the capability set of the CUDA
 reference renderer Radish_PT (see SURVEY.md).  Public API:
 
     from radish_pt_tpu import load_scene, Renderer

@@ -1,13 +1,13 @@
 """SAH BVH builder + MTBVH (6-way threaded, stackless) flattening,
-with multi-triangle leaves laid out for dense TPU testing.
+with multi-triangle leaves laid out for dense batch testing.
 
 Host-side re-implementation of the reference builder idea
 (``/root/reference/src/bvh.cpp:12-183``: 16-bucket SAH binning + the 6-way
 near-to-far threaded orders of Hachisuka's MTBVH, TDF 2015) with one crucial
-TPU-specific change: **leaves hold up to ``leaf_size`` triangles** stored in
+wavefront-specific change: **leaves hold up to ``leaf_size`` triangles** stored in
 a padded, leaf-major f32[n_leaves, L*9] table.  A lockstep traversal then
 does ~10x fewer gather-bound node steps, and each leaf visit is a dense
-[rays, L] Möller–Trumbore batch — exactly the VPU's preferred shape.  With
+[rays, L] Möller–Trumbore batch.  With
 ``leaf_size=1`` the layout degenerates to the reference's one-prim leaves.
 
 Layout contract (shared with :mod:`radish_pt_tpu.accel.traverse`):

@@ -1,6 +1,6 @@
 """Ray–scene intersection: branch-free primitives + lockstep MTBVH traversal.
 
-TPU re-design of the reference's per-thread device routines:
+Wavefront re-design of the reference's per-thread device routines:
 
 * slab test          — ``AABB::intersect``            (bvh.h:91-155)
 * Möller–Trumbore    — ``intersectTriangle``          (intersections.h:20-68)
@@ -14,18 +14,15 @@ rays advances in lockstep through a ``lax.while_loop``: each iteration every
 active lane visits exactly one node, exactly mirroring the reference's
 per-iteration work.  Lanes that finish park at ``node == BVHSize`` and no-op.
 
-TPU-specific layout decisions (the perf-critical part):
+Layout decisions:
 
 * Node records are PACKED into one f32[6B, 8] row per (direction, node):
   bmin.xyz, bmax.xyz, bitcast(prim), bitcast(miss) — so each lockstep
-  iteration issues ONE [N, 8] gather instead of five scattered ones (XLA TPU
-  gathers dominate the walk's cost).
+  iteration issues ONE [N, 8] gather instead of five scattered ones.
 * Triangles are packed as f32[T, 9] = v0.xyz, e01.xyz, e02.xyz with the edge
   vectors precomputed.
 * All intersection math is COMPONENT-WISE over [N]-shaped (or [N, C]-shaped)
-  arrays: a trailing xyz axis of size 3 would land in the 128-wide lane
-  dimension and waste 42x of the VPU; per-component math keeps the minor
-  axis dense.
+  arrays, so no size-3 axis ends up minor-most.
 """
 
 from __future__ import annotations
@@ -341,21 +338,20 @@ def _ray_consts(bvh_packed, ray_o, ray_d):
 
 
 # Phase-1 lockstep budget + compaction fraction: after PHASE1_ITERS steps the
-# vast majority of rays have parked (measured teapot@160^2: 63% active at 96
+# vast majority of rays have parked (counted on teapot@160^2: 63% active at 96
 # steps, 9.6% at 128, 0.4% at 192); the unfinished tail is compacted to
-# n/COMPACT_FRAC lanes and walked to completion at a fraction of the gather
-# cost — XLA TPU gathers bill ~8 ns per *divergent* row, so cost scales with
-# (iterations x live lanes).  A final full-width while_loop guarantees
-# correctness if the tail overflowed the compact buffer (it exits immediately
-# in the common case).
+# n/COMPACT_FRAC lanes and walked to completion, so the gathers of the long
+# tail run over a quarter of the lanes.  A final full-width while_loop
+# guarantees correctness if the tail overflowed the compact buffer (it exits
+# immediately in the common case).
 PHASE1_ITERS = 128
 COMPACT_FRAC = 4
 
 
 # Inside a walk block, a lane reaching a leaf parks the leaf row in a carried
 # "pending" register and keeps walking; pendings are tested in one dense batch
-# at each block boundary (no per-iteration lax.cond, whose operand copies cost
-# ~0.8 ms per firing).  A lane that reaches a SECOND leaf while one is pending
+# at each block boundary (no per-iteration lax.cond and its operand copies).
+# A lane that reaches a SECOND leaf while one is pending
 # stalls in place until the next flush (rare: >1 leaf per 8 steps).
 FLUSH_EVERY = 8
 
@@ -427,12 +423,16 @@ def intersect_bvh(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d):
     def step(s):
         return _walk_step(leaf_tris, bvh_packed, size, consts, s)
 
-    # phase 1: fixed lockstep budget, full width, block-flushed pendings
-    state = init
-    for _ in range(PHASE1_ITERS // FLUSH_EVERY):
-        state = _pending_walk_block(
-            leaf_tris, bvh_packed, size, consts, state, FLUSH_EVERY
-        )
+    # phase 1: fixed lockstep budget, full width, block-flushed pendings.
+    # A rolled loop over the blocks: unrolling them repeats the block body
+    # 16 times in every walk of the program and multiplies compile time.
+    state = jax.lax.fori_loop(
+        0, PHASE1_ITERS // FLUSH_EVERY,
+        lambda _, s: _pending_walk_block(
+            leaf_tris, bvh_packed, size, consts, s, FLUSH_EVERY
+        ),
+        init,
+    )
 
     # phase 2: compact the unfinished tail and walk it to completion
     m = max(128, n // COMPACT_FRAC)
@@ -540,9 +540,10 @@ def occlusion_bvh(leaf_tris, leaf_map, bvh_packed, x, y):
 
     # carry derived from ray state: inherits shard_map varying axes
     zi = (x[:, 0] * 0.0).astype(jnp.int32)
-    state = (zi, zi.astype(bool))
-    for _ in range(PHASE1_ITERS // FLUSH_EVERY):
-        state = occ_block(state, FLUSH_EVERY)
+    state = jax.lax.fori_loop(  # rolled, as in intersect_bvh
+        0, PHASE1_ITERS // FLUSH_EVERY,
+        lambda _, s: occ_block(s, FLUSH_EVERY), (zi, zi.astype(bool)),
+    )
 
     m = max(128, n // COMPACT_FRAC)
     if m < n:

@@ -1,9 +1,9 @@
 """Physically based BSDFs: Lambertian, GGX metallic-workflow, dielectric.
 
-TPU re-design of the reference ``Material`` device methods
+Wavefront re-design of the reference ``Material`` device methods
 (``/root/reference/src/material.h:128-275``).  Instead of a per-thread switch,
 every lane evaluates all lobes branch-free and the result is selected by the
-material-type mask — 3 cheap VPU paths beat divergent control flow on TPU.
+material-type mask, with no divergent control flow.
 
 Sampling follows the reference math:
 * Lambertian — cosine hemisphere (material.h:141-147)
@@ -15,7 +15,7 @@ Sampling follows the reference math:
 
 from __future__ import annotations
 
-from flax import struct
+from ..utils import struct
 
 import jax.numpy as jnp
 

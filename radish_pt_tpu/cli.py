@@ -3,8 +3,8 @@
 Counterpart of the reference app driver (``/root/reference/src/main.cpp:71-107``):
 ``python -m radish_pt_tpu SCENEFILE.txt`` loads the scene, renders the number
 of samples given by the scene's ``Sample`` line (or ``--spp``), and saves the
-image.  There is no OpenGL preview on a TPU host; ``--preview-every N`` dumps
-intermediate PNGs instead.
+image.  There is no OpenGL preview on a headless host; ``--preview-every N``
+dumps intermediate PNGs instead.
 """
 
 from __future__ import annotations
@@ -13,11 +13,13 @@ import argparse
 import os
 import time
 
+from .scene.build import INTERSECTORS
+
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="radish_pt_tpu",
-        description="TPU-native path tracer (Radish_PT capability set)",
+        description="JAX wavefront path tracer (Radish_PT capability set)",
     )
     p.add_argument("scene", help="scene file (reference text grammar)")
     p.add_argument("--spp", type=int, default=None, help="override Sample count")
@@ -93,45 +95,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="enable jax_debug_nans (traps NaNs in kernels)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a jax.profiler trace of the render loop "
-                   "(view with xprof/tensorboard)")
-    p.add_argument("--compact-tuning", default=None, metavar="K=V[,K=V...]",
-                   help="override pallas_compact engine tuning, e.g. "
-                   "group=2,fan=4,work_per_row=40 (see tools/tpu_triage.py)")
+                   "after its first (compiling) frame; summarize with "
+                   "tools/trace_summary.py or view with xprof/tensorboard")
     p.add_argument(
-        "--intersector", default=None,
-        choices=["pallas_mxu", "pallas_compact", "pallas_quad",
-                 "pallas_band", "pallas_brute", "bvh", "brute"],
-        help="force the intersection engine (default: auto by scene size "
-        "and backend; also settable via RADISH_INTERSECTOR)")
-    p.add_argument(
-        "--band-g", type=int, default=None, choices=[1, 2, 4, 8, 16],
-        help="bands per 128-lane row for the pallas_band engine")
+        "--intersector", default=None, choices=list(INTERSECTORS),
+        help="force the intersection engine (default: auto by scene size; "
+        "also settable via RADISH_INTERSECTOR)")
     return p
-
-
-def apply_compact_tuning(spec: str) -> None:
-    """Mutate the pallas_compact engine tuning from a "k=v,k=v" spec.
-    Must run before the first jit trace (values are read at trace time)."""
-    from .accel.pallas_kernels import COMPACT_TUNING
-
-    for kv in spec.split(","):
-        k, _, v = kv.partition("=")
-        k = k.strip()
-        if k not in COMPACT_TUNING:
-            raise SystemExit(
-                f"--compact-tuning: unknown key {k!r} "
-                f"(valid: {', '.join(COMPACT_TUNING)})")
-        try:
-            iv = int(v)
-        except ValueError:
-            raise SystemExit(
-                f"--compact-tuning: {k} needs an integer, got {v!r}")
-        if k == "group" and iv not in (1, 2, 4, 8):
-            # a RAY_BLOCK is 8 rows; the row-group size must divide it
-            raise SystemExit("--compact-tuning: group must be 1, 2, 4 or 8")
-        if iv < 1:
-            raise SystemExit(f"--compact-tuning: {k} must be >= 1")
-        COMPACT_TUNING[k] = iv
 
 
 def main(argv=None) -> int:
@@ -140,10 +110,6 @@ def main(argv=None) -> int:
     if args.intersector:
         # the scene build reads this before its auto-selection
         os.environ["RADISH_INTERSECTOR"] = args.intersector
-    if args.band_g:
-        from .accel.pallas_kernels import BAND_TUNING
-
-        BAND_TUNING["G"] = args.band_g
 
     from .config import Denoiser, ReservoirReuse, ToneMapping, Tracer
     from .render.renderer import Renderer
@@ -154,9 +120,6 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_debug_nans", True)
-
-    if args.compact_tuning:
-        apply_compact_tuning(args.compact_tuning)
 
     mesh = None
     if args.mesh:
@@ -244,11 +207,16 @@ def main(argv=None) -> int:
         print("[--batch-spp renders without the denoiser; using the "
               "per-frame loop so denoising applies]")
         args.batch_spp = 0
+    batched = args.batch_spp > 1 and args.tracer in ("pt", "restir")
+    first = 0
+    if args.profile and not batched and spp > 1:
+        r.step()  # compile outside the trace window
+        first = 1
     with profile_cm:
-        if args.batch_spp > 1 and args.tracer in ("pt", "restir"):
+        if batched:
             r.render_batched(spp, block=args.batch_spp)
         else:
-            for i in range(spp):
+            for i in range(first, spp):
                 r.step()
                 if args.preview_every and (i + 1) % args.preview_every == 0:
                     p = r.save(f"{r.state.image_name}_preview_{i + 1}.png")

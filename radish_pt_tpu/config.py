@@ -20,7 +20,7 @@ class ToneMapping:
 
 class Tracer:
     STREAMED = 0  # wavefront path tracer (full MIS)
-    SINGLE_KERNEL = 1  # alias of STREAMED on TPU (kept for API parity)
+    SINGLE_KERNEL = 1  # alias of STREAMED here (kept for API parity)
     BVH_VISUALIZE = 2
     GBUFFER_PREVIEW = 3
     RESTIR_DI = 4

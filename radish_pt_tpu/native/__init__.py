@@ -1,7 +1,7 @@
 """Native (C++) host-runtime components: SAH BVH builder + OBJ loader.
 
 The reference keeps its host runtime in C++ (tinyobjloader + bvh.cpp); these
-are fresh TPU-framework twins compiled to ``libradish_native.so`` and bound
+are fresh twins compiled to ``libradish_native.so`` and bound
 through ctypes.  Everything degrades gracefully to the numpy implementations
 when the library is missing or ``RADISH_NATIVE=0``.
 

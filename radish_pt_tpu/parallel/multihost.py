@@ -1,10 +1,10 @@
-"""Multi-host (multi-process) rendering over DCN + ICI.
+"""Multi-host (multi-process) rendering.
 
 The single-host mesh layer (``parallel/sharding.py``) already expresses the
 render as shard_map programs over a ``(tile, sample)`` ``Mesh``; JAX's
 multi-controller runtime extends the same programs across hosts — the mesh
-simply spans all processes' devices, XLA routes intra-host collectives over
-ICI and inter-host ones over DCN.  Nothing in the render code changes;
+simply spans all processes' devices, and XLA routes the collectives within
+and between hosts.  Nothing in the render code changes;
 this module only adds the process-level plumbing:
 
 * :func:`initialize` — ``jax.distributed`` bring-up (coordinator + rank).
@@ -22,7 +22,7 @@ Launch (one command per host / per process):
         --num-processes N --process-id I SCENE.txt
 
 Tested end-to-end with 2 CPU processes (Gloo collectives) in
-tests/test_multihost.py — the standard stand-in for multi-host TPU pods.
+tests/test_multihost.py — the standard stand-in for a multi-host cluster.
 The reference is strictly single-GPU (SURVEY.md §2 rows 26-27); this layer
 is the framework's honest scale-out extension.
 """
@@ -36,19 +36,25 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
-def initialize(coordinator_address: str, num_processes: int, process_id: int):
-    """Bring up the multi-controller runtime (idempotent per process)."""
+def initialize(coordinator_address: str, num_processes: int, process_id: int,
+               local_device_ids: list[int] | None = None):
+    """Bring up the multi-controller runtime (idempotent per process).
+
+    ``local_device_ids``: the cards of this host that this process owns.
+    When several processes share a host, give each its own cards — a JAX
+    process reserves most of every card it opens."""
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
 
 
 def make_global_mesh(n_sample: int = 1) -> Mesh:
     """(tile, sample) mesh over every device of every process.  Device
     order interleaves hosts last, so tile shards are host-contiguous —
-    neighbor traffic for display gathers rides DCN once, not per row."""
+    neighbor traffic for display gathers crosses hosts once, not per row."""
     devices = np.asarray(jax.devices())
     n_tile = len(devices) // n_sample
     return Mesh(devices[: n_tile * n_sample].reshape(n_tile, n_sample),

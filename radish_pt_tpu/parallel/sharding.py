@@ -1,8 +1,8 @@
 """Multi-chip parallel rendering: pixel-tile + sample data parallelism over a
-``jax.sharding.Mesh`` with XLA collectives riding ICI.
+``jax.sharding.Mesh`` with XLA collectives between the devices.
 
 The reference is strictly single-GPU (SURVEY.md §2 row 26: one process, no
-NCCL/MPI anywhere); this module is the TPU framework's distributed backend
+NCCL/MPI anywhere); this module is the JAX rebuild's distributed backend
 (SURVEY.md §2 row 27, §5): an honest *extension* with no reference
 counterpart.
 
@@ -40,17 +40,18 @@ from ..scene import device_scene as dsc
 
 
 def make_mesh(n_tile: int | None = None, n_sample: int = 1, devices=None) -> Mesh:
-    """Build a (tile, sample) device mesh; defaults to all devices on the
-    tile axis.  Falls back to virtual CPU devices
-    (--xla_force_host_platform_device_count) when the default backend has too
-    few chips — the standard way to dry-run multi-chip sharding."""
+    """Build a (tile, sample) device mesh over the default backend's devices
+    (or ``devices``); defaults to all of them on the tile axis.  Raises when
+    there are too few.  To dry-run on the CPU, give it virtual devices
+    (``--xla_force_host_platform_device_count``) with ``JAX_PLATFORMS=cpu``."""
     if devices is None:
         devices = jax.devices()
-        need = (n_tile or 1) * n_sample
-        if len(devices) < need:
-            cpu = jax.devices("cpu")
-            if len(cpu) >= need:
-                devices = cpu
+    need = (n_tile or 1) * n_sample
+    if len(devices) < need:
+        raise ValueError(
+            f"mesh needs {need} devices, the {devices[0].platform} backend "
+            f"has {len(devices)}"
+        )
     if n_tile is None:
         n_tile = len(devices) // n_sample
     dev_array = np.asarray(devices[: n_tile * n_sample]).reshape(n_tile, n_sample)

@@ -1,6 +1,6 @@
 """Denoisers: edge-avoiding à-trous wavelet (EAW) and SVGF.
 
-TPU re-design of ``/root/reference/src/denoiser.cu``:
+Wavefront re-design of ``/root/reference/src/denoiser.cu``:
 * ``waveletFilter`` (EAW, :17-85) and the variance-guided SVGF variant (:92-173)
 * ``temporalAccumulate`` (:208-262), ``estimateVariance`` (:264-299),
   ``filterVariance`` (:301-328)
@@ -8,17 +8,15 @@ TPU re-design of ``/root/reference/src/denoiser.cu``:
   ``SpatioTemporalFilter::filter`` (:525-558)
 
 Every stencil is expressed as 25 statically shifted views (shift + boundary
-mask), which XLA fuses into a single VPU loop.  Layout is PLANAR [3, H, W]
-(channels leading): with interleaved [H, W, 3] the size-3 channel axis lands
-in the TPU's 128-wide lane dimension and wastes 42x of the VPU — measured
-109 ms for the 5-level EAW chain at 800x800 vs ~8 ms planar.  The public
-API keeps flat [N, 3] arrays; conversion is two cheap transposes.
+mask), which XLA fuses into a single loop.  Layout is PLANAR [3, H, W]
+(channels leading), so no size-3 channel axis ends up minor-most.  The
+public API keeps flat [N, 3] arrays; conversion is two cheap transposes.
 """
 
 from __future__ import annotations
 
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 import jax.numpy as jnp
 
@@ -110,7 +108,7 @@ def eaw_level(
             # one exp for all three edge-stopping terms: each distance is
             # >= 0 so every min(1, exp(-x)) was a no-op, and
             # exp(a)exp(b)exp(c) == exp(a+b+c) — ~2 fewer transcendentals
-            # per tap on the VPU at identical math
+            # per tap at identical math
             wt = jnp.exp(
                 -(dc2 / sig_luminance + dn2 / sig_normal + dp2 / sig_depth)
             ) * GAUSSIAN_5X5[i + 2, j + 2]

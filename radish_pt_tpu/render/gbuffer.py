@@ -1,6 +1,6 @@
 """G-buffer pass: albedo / normal / matId / depth / motion reprojection.
 
-TPU re-design of ``renderGBuffer`` (``/root/reference/src/gBuffer.cu:3-103``)
+Wavefront re-design of ``renderGBuffer`` (``/root/reference/src/gBuffer.cu:3-103``)
 and the double-buffered ``GBuffer`` struct (gBuffer.h).  One primary-ray
 wavefront writes SoA image-shaped arrays; double buffering is functional —
 the renderer keeps (current, last) ``GBufferFrame`` pytrees and swaps the
@@ -13,7 +13,7 @@ ReSTIR and SVGF neighbor tests compare these ids.
 
 from __future__ import annotations
 
-from flax import struct
+from ..utils import struct
 
 import jax.numpy as jnp
 
@@ -90,7 +90,7 @@ def render_gbuffer(
     y = idx // cam.width
 
     ray_o, ray_d = cam_mod.pinhole_rays(cam, x, y)
-    it = dsc.intersect_primary(ds, ray_o, ray_d)
+    it = dsc.intersect(ds, ray_o, ray_d)
     hit = it.prim_id != NULL_PRIMITIVE
 
     mat, norm = dsc.get_textured_material(ds, it.mat_id, it.uv, it.norm)

@@ -1,13 +1,12 @@
 """Wavefront path tracer with MIS next-event estimation.
 
-TPU re-design of the reference megakernels
+Wavefront re-design of the reference megakernels
 (``singleKernelPT`` /root/reference/src/pathtrace.cu:149-291 and
 ``PTDirectKernel`` pathtrace.cu:293-345).  The per-thread bounce loop becomes
 a lockstep masked wavefront over all pixels: every bounce runs ray-gen /
 intersect / NEE / BSDF-sample stages on [N]-shaped SoA state, with dead lanes
-masked out.  On TPU this is the idiomatic shape — the VPU has no divergence
-penalty, and the two BVH walks per bounce (closest-hit + shadow) are lockstep
-``while_loop``s over dense HBM arrays.
+masked out, and the two BVH walks per bounce (closest-hit + shadow) are
+lockstep ``while_loop``s over dense device arrays.
 
 Deviations from the reference (documented, intentional):
 * Primary-ray miss shades from the env map (or black), not the debug
@@ -22,12 +21,10 @@ Deviations from the reference (documented, intentional):
 
 from __future__ import annotations
 
-import functools
 import os
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..bsdf import materials as bsdf
 from ..scene import camera as cam_mod
@@ -46,52 +43,6 @@ def _pixel_grid(cam: cam_mod.Camera, pixel_idx=None):
     x = pixel_idx % cam.width
     y = pixel_idx // cam.width
     return pixel_idx, x, y
-
-
-TILE_W, TILE_H = 16, 8  # 128 lanes = one 8x16 pixel tile
-
-
-@functools.lru_cache(maxsize=8)
-def _tile_perm(w: int, h: int):
-    """Static tile-order lane permutation: 128 consecutive lanes cover an
-    8x16 PIXEL TILE instead of a 128-pixel scanline strip.  The Pallas
-    engines cull triangle clusters per 128/256-lane row, so the row union
-    tracks the rays' spatial footprint: a tile's frustum is ~10x narrower
-    than a scanline's (measured on teapot_hires primaries: 108 -> 80
-    ms/sweep).  Row-major tile order keeps the INVERSE a pure
-    reshape/transpose (:func:`_untile`) — no gather on the hot path; the
-    forward perm is only index arithmetic feeding ray generation."""
-    perm = (
-        np.arange(w * h, dtype=np.int32)
-        .reshape(h // TILE_H, TILE_H, w // TILE_W, TILE_W)
-        .transpose(0, 2, 1, 3)
-        .reshape(-1)
-    )
-    return perm
-
-
-def _untile(x, w: int, h: int):
-    """[N, ...] tile-order lanes -> pixel (raster) order, as a transpose."""
-    tail = x.shape[1:]
-    x = x.reshape(h // TILE_H, w // TILE_W, TILE_H, TILE_W, *tail)
-    return x.transpose(0, 2, 1, 3, *range(4, 4 + len(tail))).reshape(
-        w * h, *tail
-    )
-
-
-def _tiled_lanes(ds, cam, pixel_idx):
-    """Tile-order permutation for full-frame waves on the Pallas engines
-    (explicit pixel_idx shards — multi-chip — keep their own order).
-    Returns (perm constant | None, untile fn | None)."""
-    if (
-        pixel_idx is not None
-        or ds.intersector not in dsc.MXU_ENGINES
-        or cam.width % TILE_W
-        or cam.height % TILE_H
-    ):
-        return None, None
-    perm = jnp.asarray(_tile_perm(cam.width, cam.height))
-    return perm, lambda x: _untile(x, cam.width, cam.height)
 
 
 def sample_aperture(ds: dsc.DeviceScene, r2):
@@ -133,8 +84,9 @@ def _light_visible_side(ds, norm, ray_d):
 def _compact_mode():
     """Wavefront-compaction mode from ``RADISH_COMPACT``:
 
-    * unset      -> ``("slices", 8)`` on TPU / ``("slices", 4)`` on CPU —
-      the sliced bounce loop (:func:`_sliced_bounce_loop`).
+    * unset      -> ``("slices", 4)`` — the sliced bounce loop
+      (:func:`_sliced_bounce_loop`); the slice count is not tuned on the
+      GPU yet (ROADMAP Speed 4).
     * ``"0"``    -> ``None`` (dense masked loop).
     * ``"<m>"``  -> ``("slices", m)``.
     * ``"a,b"``  -> ``("tiers", (a, b, ...))`` — the round-4 tiered loop
@@ -147,7 +99,7 @@ def _compact_mode():
         return ("tiers", tuple(int(x) for x in env.split(",")))
     if env:
         return ("slices", int(env))
-    return ("slices", 8 if jax.default_backend() == "tpu" else 4)
+    return ("slices", 4)
 
 
 def path_trace(
@@ -163,11 +115,7 @@ def path_trace(
     ``direct`` holds primary-visible emission + first-vertex NEE, everything
     else lands in ``indirect`` (pathtrace.cu:203,244,269).
     """
-    perm, untile = _tiled_lanes(ds, cam, pixel_idx)
-    if perm is not None:
-        pixel_idx = perm
     idx, _, _ = _pixel_grid(cam, pixel_idx)
-    n = idx.shape[0]
     sampler = rng.make_sampler(looper, idx)
 
     ray_o, ray_d, sampler = _gen_primary(ds, cam, sampler, idx)
@@ -176,7 +124,7 @@ def path_trace(
     direct = ray_d * 0.0
     indirect = ray_d * 0.0
 
-    it = dsc.intersect_primary(ds, ray_o, ray_d)
+    it = dsc.intersect(ds, ray_o, ray_d)
 
     hit = it.prim_id != NULL_PRIMITIVE
     direct += jnp.where(hit[..., None], 0.0, dsc.env_radiance(ds, ray_d))
@@ -193,11 +141,9 @@ def path_trace(
     pos = it.pos
 
     mode = _compact_mode()
-    # LIVENESS GATE (VERDICT r4 #3): compaction pays only when the sweeps
-    # it shrinks dominate the sorts it adds.  At many_light (76 tris) the
-    # sweeps are trivial and the compact loop's extra sort columns +
-    # delivery sort made it a net +2% (tiered, r4) / +1% (sliced, r5:
-    # 77.7 vs 77.0 ms dense) — so small scenes keep the dense masked loop.
+    # compaction pays only when the sweeps it shrinks dominate the sorts it
+    # adds, so small scenes keep the dense masked loop (the threshold is
+    # not measured on the GPU yet, ROADMAP Speed 4).
     # RADISH_COMPACT_MIN_TRIS overrides the 2000-triangle threshold.
     min_tris = int(os.environ.get("RADISH_COMPACT_MIN_TRIS", "2000"))
     if (mode is not None and ds.cluster_bounds is not None
@@ -205,20 +151,17 @@ def path_trace(
         kind, arg = mode
         loop = (_compact_bounce_loop if kind == "tiers"
                 else _sliced_bounce_loop)
-        direct, indirect = loop(
+        return loop(
             ds, sampler, active, throughput, direct, indirect,
             pos, norm, ray_d, mat, max_depth, arg,
         )
-        if untile is not None:
-            direct, indirect = untile(direct), untile(indirect)
-        return direct, indirect
 
     wo = -ray_d
 
     def bounce(depth, carry):
         """One bounce of the reference loop (pathtrace.cu:187-272).  A
         ``fori_loop`` body instead of an unrolled chain keeps the compiled
-        graph (and TPU compile time) independent of trace depth."""
+        graph (and compile time) independent of trace depth."""
         (sampler, active, throughput, direct, indirect,
          pos, norm, ray_d, mat) = carry
         wo = -ray_d
@@ -229,11 +172,6 @@ def path_trace(
         norm = jnp.where(flip[..., None], -norm, norm)
 
         # ---- NEE with MIS (pathtrace.cu:195-207) ----
-        # NOTE: the shadow signature sort stays ON even for tile-ordered
-        # lanes: on a full-live single pass unsorted wins by ~20% (tile
-        # origins are already coherent), but the sort's dead-lane PACKING
-        # is what makes late-bounce occlusion nearly free — removing it
-        # cost teapot 175 -> 314 ms/frame (measured round 2)
         r4, sampler = rng.sample_4d(ds.sobol, sampler)
         li, wi, light_pdf = dsc.sample_direct_light(
             ds, pos, r4, mask=active & ~is_delta_bsdf, shade_normal=norm
@@ -307,10 +245,7 @@ def path_trace(
     carry = (sampler, active, throughput, direct, indirect,
              pos, norm, ray_d, mat)
     carry = jax.lax.fori_loop(1, max_depth + 1, bounce, carry)
-    direct, indirect = carry[3], carry[4]
-    if untile is not None:  # back to pixel order (pure transpose)
-        direct, indirect = untile(direct), untile(indirect)
-    return direct, indirect
+    return carry[3], carry[4]
 
 
 def _nee_contrib(ds, sampler, active, mat, norm, wo, pos, throughput):
@@ -548,9 +483,9 @@ def _sliced_bounce_loop(ds, sampler, active, throughput, direct, indirect,
       any capacity decision — the round-4 design's tier was bounded by the
       PRE-sweep live count, costing every scene one full-capacity bounce;
     * compiles ONE advance body (shape [S], :func:`advance` inside) instead
-      of one per ``lax.switch`` tier (~33 s of TPU compile each) — only the
-      cheap sort branches still switch over whole-slice capacities;
-    * quantizes capacity at S (n/8) instead of powers of two.
+      of one per ``lax.switch`` tier — only the cheap sort branches still
+      switch over whole-slice capacities;
+    * quantizes capacity at S (n / n_slices) instead of powers of two.
 
     The winner id never crosses a sort: sweep and surface refetch happen
     in the same slice, so the carry is 16 flat columns
@@ -663,9 +598,7 @@ def _sliced_bounce_loop(ds, sampler, active, throughput, direct, indirect,
             )
         act = act & ~miss
 
-        pos_s, nrm, uvi, mat_id = dsc.surface_from_ids(
-            ds, prim, bary, o_s, d_s
-        )
+        pos_s, nrm, uvi, mat_id = dsc.surface_info(ds, prim, bary)
         mat_s, nrm = dsc.get_textured_material(ds, mat_id, uvi, nrm)
         hit_light = act & (mat_s.mtype == dsc.MAT_LIGHT)
         light_vis = _light_visible_side(ds, nrm, d_s)
@@ -744,11 +677,6 @@ def _sliced_bounce_loop(ds, sampler, active, throughput, direct, indirect,
         )
         return cols
 
-    # The MXU engines recover surfaces from the winner id alone; generic
-    # engines (bvh/brute) need their exact barycentrics carried out of the
-    # slice loop for bitwise parity with the in-slice path.
-    carry_bary = ds.intersector not in dsc.MXU_ENGINES
-
     def sweep_slices(n_live_slices, cols, prim_buf, bx_buf, by_buf):
         """Slice loop in SWEEP-ONLY mode (``RADISH_NEE_LEVEL=bounce``):
         each slice runs just the extension sweep and records the winner;
@@ -766,22 +694,21 @@ def _sliced_bounce_loop(ds, sampler, active, throughput, direct, indirect,
                  for k in range(3)], axis=-1)
             act = key_s < dsc._DEAD_KEY_BIT
             prim, bary = dsc.intersect_ids(ds, o_s, d_s, act)
+            # the exact barycentrics ride out of the slice loop too, for
+            # bitwise parity with the in-slice path
             prim_buf = jax.lax.dynamic_update_slice_in_dim(
                 prim_buf, prim, off, 0)
-            if carry_bary:
-                bx_buf = jax.lax.dynamic_update_slice_in_dim(
-                    bx_buf, bary[:, 0], off, 0)
-                by_buf = jax.lax.dynamic_update_slice_in_dim(
-                    by_buf, bary[:, 1], off, 0)
+            bx_buf = jax.lax.dynamic_update_slice_in_dim(
+                bx_buf, bary[:, 0], off, 0)
+            by_buf = jax.lax.dynamic_update_slice_in_dim(
+                by_buf, bary[:, 1], off, 0)
             return j + 1, prim_buf, bx_buf, by_buf
 
         _, prim_buf, bx_buf, by_buf = jax.lax.while_loop(
             lambda st: st[0] < n_live_slices, body,
             (jnp.int32(0), prim_buf, bx_buf, by_buf),
         )
-        bary = (jnp.stack([bx_buf, by_buf], axis=-1) if carry_bary
-                else None)
-        return prim_buf, bary
+        return prim_buf, jnp.stack([bx_buf, by_buf], axis=-1)
 
     nee_level = os.environ.get("RADISH_NEE_LEVEL", "slice")
 
@@ -800,16 +727,6 @@ def _sliced_bounce_loop(ds, sampler, active, throughput, direct, indirect,
         # parity test pins this against the dense sampler chain)
         return (ptr + 7, m_new) + cols
 
-    # MEASURED DEAD END (round 5, do not retry): running the ~all-live
-    # first loop iteration as ONE full-width advance instead of n_slices
-    # slice launches — as a lax.cond fast path (hires +25 ms: conditional
-    # buffer copies on 16 full-width columns every bounce) AND as a static
-    # peel (hires +15 ms, teapot +1 ms).  The standalone sum-of-slices
-    # probe (tools/slice_budget.py: 8 slice sweeps 101 ms vs 69.6
-    # full-width) overstates in-program slice cost by its per-dispatch
-    # overhead; inside the compiled loop, slice launches are cheap and the
-    # full-width advance's big temporaries win nothing back.
-    #
     # m_prev derives from (varying) key data: sort_phase returns a varying
     # slice count, so the carry slot must start varying too
     m0 = jnp.sum(key * 0) + n_slices
@@ -841,15 +758,11 @@ def path_trace_direct(
 ):
     """One-bounce direct lighting — ``PTDirectKernel`` (pathtrace.cu:293-345).
     Returns direct [N, 3]."""
-    perm, untile = _tiled_lanes(ds, cam, pixel_idx)
-    if perm is not None:
-        pixel_idx = perm
     idx, _, _ = _pixel_grid(cam, pixel_idx)
-    n = idx.shape[0]
     sampler = rng.make_sampler(looper, idx)
 
     ray_o, ray_d, sampler = _gen_primary(ds, cam, sampler, idx)
-    it = dsc.intersect_primary(ds, ray_o, ray_d)
+    it = dsc.intersect(ds, ray_o, ray_d)
     hit = it.prim_id != NULL_PRIMITIVE
 
     direct = jnp.where(hit[..., None], 0.0, dsc.env_radiance(ds, ray_d))
@@ -872,8 +785,6 @@ def path_trace_direct(
     f = bsdf.bsdf_eval(mat, norm, wo, wi, types=ds.mat_types)
     contrib = f * li * (m.sat_dot(norm, wi) / jnp.maximum(light_pdf, 1e-12))[..., None]
     direct += jnp.where(ok[..., None], contrib, 0.0)
-    if untile is not None:
-        direct = untile(direct)
     return direct
 
 

@@ -2,7 +2,7 @@
 
 Counterpart of the reference's ``sendImageToPBO`` kernels
 (``/root/reference/src/pathtrace.cu:32-118``) and the modulate/add helpers
-(``denoiser.cu:175-206``).  All trivial fused VPU ops under jit.
+(``denoiser.cu:175-206``).  All trivial fused elementwise ops under jit.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """ReSTIR direct illumination: RIS + temporal + spatial reservoir reuse.
 
-TPU re-design of ``ReSTIRDirectKernel`` + ``Reservoir<T>``
+Wavefront re-design of ``ReSTIRDirectKernel`` + ``Reservoir<T>``
 (``/root/reference/src/restir.cu:97-233``, ``restir.h:10-101``).  Reservoir
 state is SoA image-shaped arrays (no structs); each stage — candidate RIS,
 visibility, temporal merge, spatial merge, shading — is its own pure function
@@ -18,7 +18,7 @@ rule everywhere.
 
 from __future__ import annotations
 
-from flax import struct
+from ..utils import struct
 
 import jax
 import jax.numpy as jnp
@@ -115,8 +115,8 @@ def _big_w(res: DirectReservoir, p_hat_vec):
 
 def _pack(res: DirectReservoir, *extra) -> jnp.ndarray:
     """Pack reservoir SoA (+ optional extra columns) into one [N, 9+] array
-    so a neighbor fetch is ONE divergent gather instead of 5-8 (gather cost
-    on TPU is per row; see utils/gather.py)."""
+    so a neighbor fetch is ONE divergent gather instead of 5-8 (see
+    utils/gather.py)."""
     cols = [res.li, res.wi, res.dist[:, None], res.num[:, None],
             res.weight[:, None]]
     cols += [e if e.ndim == 2 else e[:, None] for e in extra]
@@ -222,11 +222,10 @@ def merge_spatial(
     (mergeSpatialNeighborDirect, restir.cu:82-95) — a separate pass, so every
     neighbor value is from this frame, fixing the reference's sync bug.
 
-    TPU deviation from the reference's per-pixel random disk: when ``looper``
+    Deviation from the reference's per-pixel random disk: when ``looper``
     is given, each neighbor's disk offset is SHARED by all pixels and rotated
     per (frame, neighbor) by a hash — the fetch then lowers to a 2D roll of
-    the packed image (~0.1 ms) instead of a divergent [N, 15] gather (~5 ms);
-    the 5-gather spatial pass was ~25 ms of the 59 ms ReSTIR frame.  Temporal
+    the packed image instead of a divergent [N, 15] gather.  Temporal
     rotation restores the offset coverage per-pixel randomness provided.
 
     ``pixel_idx`` (shard_map callers): GLOBAL flat indices of this row-shard's
@@ -326,7 +325,7 @@ def restir_direct(
     table = ds.sobol
 
     ray_o, ray_d, sampler = _gen_primary(ds, cam, sampler, pixel_idx=pixel_idx)
-    it = dsc.intersect_primary(ds, ray_o, ray_d)
+    it = dsc.intersect(ds, ray_o, ray_d)
     hit = it.prim_id != NULL_PRIMITIVE
 
     direct = jnp.where(hit[..., None], 0.0, dsc.env_radiance(ds, ray_d))

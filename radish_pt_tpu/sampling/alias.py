@@ -1,6 +1,6 @@
 """Alias-method (Vose) discrete sampling.
 
-TPU re-design of the reference's "binomial distribution" tables
+Wavefront re-design of the reference's "binomial distribution" tables
 (``/root/reference/src/sampler.h:76-214``): the table is built on the host
 with numpy, and device-side sampling is two gathers + one compare —
 branch-free and fully vectorized over a wavefront.

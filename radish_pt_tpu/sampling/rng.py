@@ -1,11 +1,11 @@
 """Wavefront sampler: scrambled Sobol + hash-RNG fallback.
 
-TPU re-design of the reference sampler (``/root/reference/src/sampler.h:11-64``).
+Wavefront re-design of the reference sampler (``/root/reference/src/sampler.h:11-64``).
 The reference's per-thread ``Sampler`` is a tiny struct {ptr, scramble, data*};
 here the whole wavefront shares one scalar ``ptr`` (all lanes consume random
 dimensions in lockstep) and carries a per-lane uint32 ``scramble`` that evolves
 through the ``utilhash`` chain — a scalar table load + vector XOR per draw,
-which is essentially free on the VPU.
+which is cheap elementwise work.
 
 Keeping ``ptr`` scalar is exact: in the reference every pixel starts at
 ``iter * SobolSampleDim`` and advances once per draw; our masked-lane wavefront
@@ -14,7 +14,7 @@ executes draws in lockstep, so all lanes always share the same ptr.
 
 from __future__ import annotations
 
-from flax import struct
+from ..utils import struct
 
 import jax.numpy as jnp
 

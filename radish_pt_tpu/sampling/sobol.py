@@ -4,7 +4,7 @@ The reference loads a pre-baked binary ``sobol_10k_200.bin`` (10,000 samples
 x 200 dims of uint32; ``/root/reference/src/scene.cpp:542-549``) that is NOT
 shipped with its repo.  We generate an equivalent table ourselves on the host
 and cache it on disk.  Device code treats it as an opaque ``uint32`` array in
-HBM, exactly like the reference.
+device memory, exactly like the reference.
 
 Generation strategy (no network access, host-side only):
   1. ``scipy.stats.qmc.Sobol`` (Joe-Kuo direction numbers, ships with scipy).

@@ -13,7 +13,7 @@ or from the custom aperture-mask alias table (see render/pathtrace.py).
 from __future__ import annotations
 
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 import jax.numpy as jnp
 

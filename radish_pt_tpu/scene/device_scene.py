@@ -1,6 +1,6 @@
 """DeviceScene: the on-device scene mirror as a pytree of SoA arrays.
 
-TPU re-design of the reference's ``DevScene`` (``/root/reference/src/scene.h:73-518``).
+Wavefront re-design of the reference's ``DevScene`` (``/root/reference/src/scene.h:73-518``).
 Where the reference owns raw CUDA pointers and per-thread methods, here the
 scene is an immutable pytree of ``jnp`` arrays (geometry soup, 6-way threaded
 BVH, material SoA, one big texture atlas, light tables, alias samplers, Sobol
@@ -22,7 +22,6 @@ from __future__ import annotations
 import os
 
 import numpy as np
-from flax import struct
 
 import jax
 import jax.numpy as jnp
@@ -30,14 +29,12 @@ import jax.numpy as jnp
 from ..accel import traverse as trv
 from ..sampling.alias import alias_sample
 from ..utils import math as m
+from ..utils import struct
 from ..utils.gather import take_rows
 
 NULL_TEXTURE = -1
 PROCEDURAL_TEXTURE = -2
 INVALID_PDF = -1.0
-
-# the MXU sweep engine family (positional winner ids, selector-grade dist)
-MXU_ENGINES = ("pallas_mxu", "pallas_compact", "pallas_quad", "pallas_band")
 
 MAT_LAMBERTIAN = 0
 MAT_METALLIC_WORKFLOW = 1
@@ -57,15 +54,10 @@ MATERIAL_TYPE_TOKENS = {
 @struct.dataclass
 class DeviceScene:
     # --- static metadata (compile-time) ---
-    # intersector: 'pallas_brute' (dense Pallas sweep, TPU, small/mid scenes),
-    # 'bvh' (lockstep MTBVH walk), 'brute' (XLA dense sweep, tiny scenes/CPU)
+    # intersector: 'bvh' (lockstep MTBVH walk), 'brute' (XLA dense
+    # all-pairs sweep, small scenes) or 'pallas_brute' (the same sweep as a
+    # Pallas-Triton kernel, GPU) — scene/build.py::select_intersector
     intersector: str = struct.field(pytree_node=False, default="bvh")
-    use_bvh: bool = struct.field(pytree_node=False, default=True)  # legacy alias
-    # sort PRIMARY wavefronts too: raster order leaves ~2-3x cull-coherence
-    # on the table vs the signature sort (glass 19.0 -> 12.1 row-union
-    # clusters, teapot 10.4 -> 6.2; tools/bounce_stats.py) — enabled by the
-    # scene build when a clustered pallas engine is active
-    sort_primaries: bool = struct.field(pytree_node=False, default=False)
     n_area_lights: int = struct.field(pytree_node=False, default=0)
     has_env: bool = struct.field(pytree_node=False, default=False)
     has_aperture: bool = struct.field(pytree_node=False, default=False)
@@ -77,10 +69,9 @@ class DeviceScene:
     # --- geometry soup (DevScene::vertices/normals/texcoords, scene.h:494-496) ---
     tri_v: jnp.ndarray = None  # f32 [T, 3, 3] (light sampling / host use)
     # per-triangle shading attributes packed for ONE gather per hit:
-    # [v0 v1 v2 (9) | n0 n1 n2 (9) | uv0 uv1 uv2 (6)] — divergent-gather cost
-    # on TPU is per ROW (~8 ns), not per byte, so one [T,24] row beats three
-    # narrow rows (round-1: surface_info was 38 ms/bounce as 3 gathers).
-    tri_attr: jnp.ndarray = None  # f32 [T, 24]
+    # [v0 v1 v2 (9) | n0 n1 n2 (9) | uv0 uv1 uv2 (6) | mat id (1)] — one
+    # row fetch per lane instead of four narrow ones
+    tri_attr: jnp.ndarray = None  # f32 [T, 25]
     material_ids: jnp.ndarray = None  # i32 [T]
 
     # --- MTBVH (scene.h:497-499) ---
@@ -88,19 +79,9 @@ class DeviceScene:
     bounds_max: jnp.ndarray = None  # f32 [B, 3]
     bvh_packed: jnp.ndarray = None  # f32 [6*B, 8] packed node table
     tri_packed: jnp.ndarray = None  # f32 [T, 9] v0/e01/e02 components
-    # spatial (BVH leaf order) permutation + per-cluster AABBs for the
-    # MXU intersector's per-ray-block culling (None to disable)
-    tri_order: jnp.ndarray = None  # i32 [T]
+    # AABBs of the leaf-order triangle clusters (scene/build.py): the
+    # wavefront signature sort keys on them (None below 1k triangles)
     cluster_bounds: jnp.ndarray = None  # f32 [C, 6] (min.xyz, max.xyz)
-    # triangles per cull cluster (per-scene: 64 default, 512 for big
-    # scan-tier scenes — accel.pallas_kernels.cluster_sub_for)
-    cluster_sub: int = struct.field(pytree_node=False, default=64)
-    # build-time stacked Plücker decision planes + scene center for the MXU
-    # engines (accel.pallas_kernels.precompute_sweep_coeffs): computing them
-    # per sweep inside the bounce fori_loop costs ~5.5 ms/sweep at 111k tris
-    # (XLA does not hoist loop-invariant code out of while loops)
-    sweep_coeffs: jnp.ndarray = None  # f32|bf16 [t_pad//sub, 4*sub, 10|30]
-    sweep_center: jnp.ndarray = None  # f32 [3]
     leaf_tris: jnp.ndarray = None  # f32 [R, L*9] padded leaf-major tris
     leaf_map: jnp.ndarray = None  # i32 [R*L] leaf slot -> prim id
 
@@ -237,136 +218,41 @@ def surface_info(ds: DeviceScene, prim_id, bary) -> tuple:
     return pos, norm, uvi, mat_id
 
 
-def surface_info_from_t(ds: DeviceScene, prim_id, ray_o, ray_d):
-    """Position/normal/uv from the winning PRIMITIVE id (MXU intersector path).
+def _closest_hit(ds: DeviceScene, ray_o, ray_d):
+    """(prim_id, dist, bary) from the scene's intersection engine."""
+    if ds.intersector == "bvh":
+        return trv.intersect_bvh(
+            ds.leaf_tris, ds.leaf_map, ds.bvh_packed, ray_o, ray_d
+        )
+    if ds.intersector == "pallas_brute":
+        from ..accel.brute_triton import intersect_brute_triton
 
-    The MXU sweep's ``t`` is selector-grade only: the quadratic-feature
-    epilogue squares MT's condition number, so grazing hits can carry ~1%
-    distance error (and the winner key quantizes 64 ulp more).  The winner
-    id, however, is robust — so recompute the EXACT hit distance here from
-    the gathered triangle row via the well-conditioned ray-plane form
-    t = (v0−o)·n / (d·n), then derive barycentrics by projecting onto the
-    edge basis.  Uses the same single [T,25] attribute gather as
-    :func:`surface_info` — no extra memory traffic.
-    """
-    a = take_rows(ds.tri_attr, jnp.maximum(prim_id, 0))
-    v0 = a[:, 0:3]
-    e1 = a[:, 3:6] - v0
-    e2 = a[:, 6:9] - v0
-    gn = jnp.cross(e1, e2)
-    denom = m.dot(ray_d, gn)
-    # winners satisfy |d·n| > eps; the guard only protects dead lanes
-    t_exact = m.dot(v0 - ray_o, gn) / jnp.where(
-        jnp.abs(denom) > 1e-30, denom, 1e-30
-    )
-    t_exact = jnp.clip(t_exact, 0.0, 1e8)
-    p = ray_o + ray_d * t_exact[..., None] - v0
-    d11 = m.dot(e1, e1)
-    d12 = m.dot(e1, e2)
-    d22 = m.dot(e2, e2)
-    p1 = m.dot(p, e1)
-    p2 = m.dot(p, e2)
-    inv = 1.0 / jnp.maximum(d11 * d22 - d12 * d12, 1e-30)
-    bx = ((d22 * p1 - d12 * p2) * inv)[..., None]
-    by = ((d11 * p2 - d12 * p1) * inv)[..., None]
-    bw = 1.0 - bx - by
-    pos = v0 + e1 * bx + e2 * by
-    norm = m.normalize(a[:, 12:15] * bx + a[:, 15:18] * by + a[:, 9:12] * bw)
-    uvi = a[:, 20:22] * bx + a[:, 22:24] * by + a[:, 18:20] * bw
-    mat_id = jnp.where(prim_id >= 0, a[:, 24].astype(jnp.int32), -1)
-    return pos, norm, uvi, mat_id
-
-
-def _mxu_engines(ds: DeviceScene):
-    """Resolve the MXU intersection/occlusion entry points and their
-    trace-time tuning kwargs for ``ds.intersector`` (pallas_mxu linear
-    Plücker scan, pallas_quad quadratic-feature scan, or pallas_compact
-    work-list kernel) — one place for all call sites."""
-    from ..accel.pallas_kernels import (
-        BAND_TUNING, COMPACT_TUNING, intersect_plucker_band,
-        intersect_plucker_compact, intersect_plucker_pallas,
-        intersect_quad_pallas, occlusion_plucker_band,
-        occlusion_plucker_compact, occlusion_plucker_pallas,
-        occlusion_quad_pallas)
-
-    pre = {}
-    if ds.sweep_coeffs is not None:
-        # build-time stacked decision planes (skip per-sweep coeff prep)
-        pre = dict(coeffs_pre=ds.sweep_coeffs, center_pre=ds.sweep_center)
-    if ds.intersector == "pallas_compact":
-        return (intersect_plucker_compact, occlusion_plucker_compact,
-                dict(COMPACT_TUNING) | pre)
-    if ds.intersector == "pallas_band":
-        return (intersect_plucker_band, occlusion_plucker_band,
-                dict(BAND_TUNING) | pre)
-    if ds.intersector == "pallas_quad":
-        return (intersect_quad_pallas, occlusion_quad_pallas,
-                dict(cluster_sub=ds.cluster_sub) | pre)
-    return (intersect_plucker_pallas, occlusion_plucker_pallas,
-            dict(cluster_sub=ds.cluster_sub) | pre)
+        return intersect_brute_triton(ds.tri_packed, ray_o, ray_d)
+    return trv.intersect_brute(ds.tri_packed, ray_o, ray_d)
 
 
 def intersect(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
     """Closest hit + surface interpolation (DevScene::intersect, scene.h:262-301).
-    Static dispatch over the scene's intersector (MXU Plücker sweep / Pallas
-    VPU sweep / MTBVH walk / XLA dense sweep).
+    Static dispatch over the scene's intersector (MTBVH walk / dense sweep).
 
-    ``active`` (bool [N], optional): lanes marked False are DEAD — the MXU
-    path hands the culling prepass ``tmax = -inf`` for them, so they flag no
-    sub-clusters and an all-dead 1024-ray block skips every sweep with a
-    scalar branch.  Dead lanes return prim_id == NULL_PRIMITIVE.
+    ``active`` (bool [N], optional): lanes marked False are DEAD and return
+    prim_id == NULL_PRIMITIVE.
     """
-    if ds.intersector in MXU_ENGINES:
-        from ..accel.pallas_kernels import FLT_MAX
-
-        isect, _, tuning = _mxu_engines(ds)
-        tmax = None
-        if active is not None:
-            tmax = jnp.where(active, FLT_MAX, -FLT_MAX)
-        prim, dist = isect(
-            ds.tri_packed, ray_o, ray_d,
-            tri_order=ds.tri_order, cluster_bounds=ds.cluster_bounds,
-            tmax=tmax, **tuning,
-        )
-        if active is not None:
-            prim = jnp.where(active, prim, -1)
-        del dist  # selector-grade; surface_info_from_t recomputes exact t
-        pos, norm, uv, mat_id = surface_info_from_t(ds, prim, ray_o, ray_d)
-        return Interaction(prim_id=prim, mat_id=mat_id, pos=pos, norm=norm, uv=uv)
-    if ds.intersector == "pallas_brute":
-        from ..accel.pallas_kernels import intersect_brute_pallas
-
-        prim, dist, bary = intersect_brute_pallas(ds.tri_packed, ray_o, ray_d)
-    elif ds.intersector == "bvh":
-        prim, dist, bary = trv.intersect_bvh(
-            ds.leaf_tris, ds.leaf_map, ds.bvh_packed, ray_o, ray_d
-        )
-    else:
-        prim, dist, bary = trv.intersect_brute(ds.tri_packed, ray_o, ray_d)
-    if active is not None:
-        # honor the dead-lane contract for the non-MXU engines too (the MXU
-        # branch above masks before surface_info_from_t)
-        prim = jnp.where(active, prim, -1)
+    prim, bary = intersect_ids(ds, ray_o, ray_d, active)
     pos, norm, uv, mat_id = surface_info(ds, prim, bary)
     return Interaction(prim_id=prim, mat_id=mat_id, pos=pos, norm=norm, uv=uv)
 
 
 def intersect_sorted(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
-    """Closest hit for DIVERGENT wavefronts (bounce rays): sort rays by
-    (direction octant, origin cell) so each 1024-ray kernel block shares a
-    direction cone and an origin region, which restores the per-block
-    sub-cluster culling that coherent primaries get for free.  XLA's TPU sort
-    on small keys costs ~1-3 ms at 640k lanes; the two permutation gathers
-    ~10 ms — worth it once the dense sweep exceeds a few tens of ms.
+    """Closest hit for DIVERGENT wavefronts (bounce rays): sort rays by their
+    cluster signature (:func:`_sort_key`) so neighbouring lanes share a
+    direction cone and an origin region, intersect, and undo the sort.
 
-    ``active``: dead lanes sort to the back (top key bit) AND flag no
-    sub-clusters, so the kernel skips all-dead blocks entirely — free
-    wavefront "compaction" without changing array shapes.
+    ``active``: dead lanes sort to the back (top key bit) and report no hit.
 
-    Both permutations ride ``lax.sort`` with payload columns (TPU sorts a
-    640k-lane column in ~0.65 ms, ~15x cheaper than the equivalent
-    divergent row gather): the forward sort carries (lane, rays, active),
-    the inverse is a second sort keyed on the carried lane id.
+    Both permutations ride ``lax.sort`` with payload columns: the forward
+    sort carries (lane, rays), the inverse is a second sort keyed on the
+    carried lane id.
 
     Results are bitwise identical to :func:`intersect` (per-ray independent
     math + exact round-trip), for any intersector.
@@ -387,40 +273,8 @@ def intersect_sorted(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
     o_s = jnp.stack(s[2:5], axis=-1)
     d_s = jnp.stack(s[5:8], axis=-1)
     # liveness rides the sorted KEY's dead bit — no payload column needed
-    # (each payload column costs ~0.6 ms/sort at 640k lanes, tools/sortbench.py)
     act_s = (s[0] < _DEAD_KEY_BIT) if active is not None else None
 
-    if ds.intersector in MXU_ENGINES:
-        # run just the (prim, dist) sweep on the sorted rays; the inverse
-        # sort then carries one payload column (lane key + prim) and the
-        # surface/material interpolation happens in PIXEL order (same
-        # gather cost, ~8 fewer sort columns)
-        from ..accel.pallas_kernels import FLT_MAX
-
-        isect, _, tuning = _mxu_engines(ds)
-        tmax = None
-        if active is not None:
-            # dead lanes (sorted to the back) flag no clusters: tmax = -inf
-            tmax = jnp.where(act_s, FLT_MAX, -FLT_MAX)
-        prim_s, dist_s = isect(
-            ds.tri_packed, o_s, d_s,
-            tri_order=ds.tri_order, cluster_bounds=ds.cluster_bounds,
-            tmax=tmax, **tuning,
-        )
-        # the sweep's dist is selector-grade only and surface_info_from_t
-        # recomputes the exact t from the winner id — so the inverse
-        # permutation carries just (lane, prim), one payload column
-        del dist_s
-        u = jax.lax.sort((lane_s, prim_s), num_keys=1)
-        prim = u[1]
-        if active is not None:
-            prim = jnp.where(active, prim, -1)
-        pos, norm, uv, mat_id = surface_info_from_t(ds, prim, ray_o, ray_d)
-        return Interaction(prim_id=prim, mat_id=mat_id, pos=pos, norm=norm,
-                           uv=uv)
-
-    # generic intersectors (bvh / brute on CPU): full sorted intersect,
-    # inverse sort carries the whole interaction
     it = intersect(ds, o_s, d_s, active=act_s)
     u = jax.lax.sort(
         (lane_s, it.prim_id, it.mat_id,
@@ -455,7 +309,6 @@ def intersect_compact(ds: DeviceScene, ray_o, ray_d, active, extras=(),
     Returns ``(it, o_sorted, d_sorted, act_sorted, extras_sorted)`` — all
     in sorted order; ``it.prim_id`` is NULL on dead lanes.
     """
-    n = ray_o.shape[0]
     if key is None:
         key = _sort_key(ds, ray_o, ray_d)
     key = key + jnp.where(active, 0, _DEAD_KEY_BIT)
@@ -467,108 +320,54 @@ def intersect_compact(ds: DeviceScene, ray_o, ray_d, active, extras=(),
     d_s = jnp.stack(s[4:7], axis=-1)
     extras_s = s[7:]
     act_s = s[0] < _DEAD_KEY_BIT
-
-    if ds.intersector in MXU_ENGINES:
-        from ..accel.pallas_kernels import FLT_MAX
-
-        isect, _, tuning = _mxu_engines(ds)
-        tmax = jnp.where(act_s, FLT_MAX, -FLT_MAX)
-        prim, _ = isect(
-            ds.tri_packed, o_s, d_s,
-            tri_order=ds.tri_order, cluster_bounds=ds.cluster_bounds,
-            tmax=tmax, **tuning,
-        )
-        prim = jnp.where(act_s, prim, -1)
-        pos, norm, uv, mat_id = surface_info_from_t(ds, prim, o_s, d_s)
-        it = Interaction(prim_id=prim, mat_id=mat_id, pos=pos, norm=norm,
-                         uv=uv)
-    else:
-        it = intersect(ds, o_s, d_s, active=act_s)
+    it = intersect(ds, o_s, d_s, active=act_s)
     return it, o_s, d_s, act_s, extras_s
 
 
-def intersect_ids(ds: DeviceScene, ray_o, ray_d, active):
-    """Closest hit on ALREADY-COHERENT rays returning only the winner —
-    ``(prim_id [N], bary [N,2] | None)`` — with NO surface recovery.  The
-    sliced bounce loop (render/pathtrace.py::_sliced_bounce_loop) sweeps
-    and refetches in the same slice, so the surface interpolation moves to
-    :func:`surface_from_ids` after the accounting that needs only ids.
-
-    ``bary`` is None on the MXU engines (their surface comes from the
-    winner id via :func:`surface_info_from_t`); the generic engines return
-    their exact barycentrics so the downstream surface math is bitwise
-    identical to :func:`intersect` per engine."""
-    if ds.intersector in MXU_ENGINES:
-        from ..accel.pallas_kernels import FLT_MAX
-
-        isect, _, tuning = _mxu_engines(ds)
-        tmax = jnp.where(active, FLT_MAX, -FLT_MAX)
-        prim, _ = isect(
-            ds.tri_packed, ray_o, ray_d,
-            tri_order=ds.tri_order, cluster_bounds=ds.cluster_bounds,
-            tmax=tmax, **tuning,
-        )
-        return jnp.where(active, prim, -1), None
-    if ds.intersector == "pallas_brute":
-        from ..accel.pallas_kernels import intersect_brute_pallas
-
-        prim, dist, bary = intersect_brute_pallas(ds.tri_packed, ray_o, ray_d)
-    elif ds.intersector == "bvh":
-        prim, dist, bary = trv.intersect_bvh(
-            ds.leaf_tris, ds.leaf_map, ds.bvh_packed, ray_o, ray_d
-        )
-    else:
-        prim, dist, bary = trv.intersect_brute(ds.tri_packed, ray_o, ray_d)
-    return jnp.where(active, prim, -1), bary
-
-
-def surface_from_ids(ds: DeviceScene, prim, bary, ray_o, ray_d):
-    """Surface recovery for :func:`intersect_ids` winners — the engine's
-    own exact path: winner-id replay on the MXU engines, barycentric
-    interpolation elsewhere.  Returns (pos, norm, uv, mat_id)."""
-    if bary is None:
-        return surface_info_from_t(ds, prim, ray_o, ray_d)
-    return surface_info(ds, prim, bary)
+def intersect_ids(ds: DeviceScene, ray_o, ray_d, active=None):
+    """Closest hit returning only the winner — ``(prim_id [N], bary [N,2])``
+    — with NO surface recovery.  The sliced bounce loop
+    (render/pathtrace.py::_sliced_bounce_loop) sweeps and refetches in the
+    same slice, so the surface interpolation (:func:`surface_info`) moves
+    after the accounting that needs only ids.  Dead lanes (``active``
+    False) return NULL_PRIMITIVE."""
+    prim, _, bary = _closest_hit(ds, ray_o, ray_d)
+    if active is not None:
+        prim = jnp.where(active, prim, -1)
+    return prim, bary
 
 
 _DEAD_KEY_BIT = 1 << 24  # above all live sort-key bits
 # the signature prepass is an [N, C] slab test; big scenes COARSEN the key
 # clusters (repeated pairing) to stay under this bound instead of falling
-# back to the geometric key — at 111k tris the geometric key's row-union
-# is 54 clusters vs a 5.4 per-ray floor because pinhole primaries collapse
-# to ONE (octant, origin-cell) bucket (tools/bounce_stats.py)
+# back to the geometric key, whose pinhole primaries collapse to ONE
+# (octant, origin-cell) bucket
 _SIGNATURE_MAX_CLUSTERS = 256
 # skip the forced key pairing when the scene already has few clusters —
-# below this count the [N, C] prepass is cheap and the tighter key
-# (kernel-granularity signatures) wins; RADISH_SIG_PAIR_MIN overrides
+# below this count the [N, C] prepass is cheap and the finer key wins;
+# RADISH_SIG_PAIR_MIN overrides
 _SIGNATURE_PAIR_MIN = 64
 
 
 def _sort_key(ds: DeviceScene, ray_o, ray_d, tmax=None):
     """Wavefront coherence sort key.
 
-    Preferred form: the ray's CLUSTER SIGNATURE — (first flagged
-    sub-cluster, clamped offset to the second, clamped flag count) from the
-    same conservative slab test the sweep's culling prepass uses.  Rays that
-    sort together then flag near-identical cluster sets, which is exactly
-    what the per-row (128-ray) mask union needs: teapot bounce rays sweep
-    7.4 clusters/row vs 10.9 for the best geometric (direction, Morton
-    cell) key and 3.0 for the per-ray floor (tools/cull_stats.py).
+    Preferred form: the ray's CLUSTER SIGNATURE — (first flagged cluster,
+    second flagged cluster, clamped flag count) from a conservative slab
+    test against the cluster AABBs.  Rays that sort together then cross
+    near-identical cluster sets (teapot bounce rays: 7.4 clusters per
+    128-ray row vs 10.9 for the best geometric (direction, Morton cell) key
+    and 3.0 for the per-ray floor).
 
     ``tmax`` (f32 [N]): segment bound for shadow queries — tightens the
-    signature exactly like the kernel prepass tightens its masks.
+    signature to the segment.
 
     The signature is computed on 128-tri SUPER-clusters (pairs of the
-    kernel's 64-tri cull clusters): measured row-union cull quality is
-    identical (teapot 7.36 vs 7.37 clusters/row; tools/cull_stats.py) at
-    half the [N, C] slab-prepass cost."""
+    64-tri build clusters): the row-union count is the same (teapot 7.36 vs
+    7.37 clusters/row) at half the [N, C] slab-prepass cost."""
     cb = ds.cluster_bounds
     # pair-reduce (64-tri clusters -> 128-tri super-clusters -> ...) until
-    # the [N, C] signature prepass is affordable.  One forced pairing was
-    # measured quality-neutral at 64-tri clusters with C~78-1700
-    # (BASELINE.md round 1); at the round-4 per-scene cluster sizes
-    # (128/512 tris) C is already small, so the key keeps the KERNEL's
-    # mask granularity unless the prepass would exceed the budget.
+    # the [N, C] signature prepass is affordable
     pair_min = int(os.environ.get("RADISH_SIG_PAIR_MIN",
                                   _SIGNATURE_PAIR_MIN))
     while cb.shape[0] > 1 and (
@@ -601,25 +400,12 @@ def _sort_key(ds: DeviceScene, ray_o, ray_d, tmax=None):
         ids = jnp.arange(n_c, dtype=jnp.int32)[None, :]
         rest = hit & (ids != first[:, None])
         second = jnp.where(rest.any(axis=1), jnp.argmax(rest, axis=1), n_c + 1)
-        # WIDENED fields (round 5): first(8b) | second ABSOLUTE id (8b) |
-        # count(6b) = 22 bits < _DEAD_KEY_BIT.  The round-1 key clamped the
-        # second-cluster OFFSET to 15 and the count to 15; at the round-4
-        # per-scene cluster sizes (C up to 256) those clamps alias most of
-        # the tail — un-clamping closes nearly all the remaining gap to the
-        # full-mask lexsort ideal: hires bounce-1 row-union 13.67 -> 10.66
-        # vs ideal 9.76, per-ray floor 2.81 (tools/sorted_sweep_ab.py).
+        # first(8b) | second ABSOLUTE id (8b) | count(6b) = 22 bits, below
+        # _DEAD_KEY_BIT
         first8 = jnp.minimum(first, 255)
         second8 = jnp.minimum(second, 255)
         cnt = jnp.minimum(hit.sum(axis=1), 63)
-        sig = ((first8 << 14) | (second8 << 6) | cnt).astype(jnp.int32)
-        if ds.intersector == "pallas_band":
-            # COUNT-MAJOR refinement: group rays by flag count before the
-            # signature, segregating the fat tail (p99 ~45-71 flags) into
-            # its own rows so per-band max counts stay near the mean —
-            # hires bounce-1 max-band(G16) 24.9 -> 20.7 (tools/band_stats.py)
-            sig = ((cnt.astype(jnp.int32) << 16)
-                   | (first8 << 8) | second8).astype(jnp.int32)
-        return sig
+        return ((first8 << 14) | (second8 << 6) | cnt).astype(jnp.int32)
 
     lo = cb[:, 0:3].min(axis=0)
     hi = cb[:, 3:6].max(axis=0)
@@ -638,30 +424,19 @@ def _sort_key(ds: DeviceScene, ray_o, ray_d, tmax=None):
     return (dirk << 12) | morton
 
 
-def intersect_primary(ds: DeviceScene, ray_o, ray_d) -> Interaction:
-    """Primary-wavefront intersect: signature-sorted when the scene build
-    enabled ``sort_primaries`` (raster order wastes 2-3x cull coherence —
-    see the field's comment), plain ``intersect`` otherwise."""
-    if ds.sort_primaries:
-        return intersect_sorted(ds, ray_o, ray_d)
-    return intersect(ds, ray_o, ray_d)
-
-
 def test_occlusion_sorted(ds: DeviceScene, x, y, mask=None):
     """Occlusion for divergent shadow wavefronts — same ray sorting as
-    :func:`intersect_sorted`; the unpermute is one cheap [N] gather.
+    :func:`intersect_sorted`; the unpermute is one single-column sort.
 
-    ``mask``: lanes marked False get a degenerate zero-length segment (the
-    culling prepass then flags no clusters) and sort to the back so all-dead
-    blocks are skipped by the kernel's scalar branch."""
+    ``mask``: lanes marked False get a degenerate zero-length segment, sort
+    to the back and report no occlusion."""
     if mask is not None:
         y = jnp.where(mask[..., None], y, x)
     if ds.cluster_bounds is None:
         return test_occlusion(ds, x, y)
     d = y - x
     # d is the unnormalized segment, so slab distances are in segment
-    # fractions: tmax=1 bounds the signature at the light, like the
-    # kernel prepass bounds its masks
+    # fractions: tmax=1 bounds the signature at the light
     key = _sort_key(ds, x, d, tmax=jnp.ones(x.shape[0]))
     if mask is not None:
         key = key + jnp.where(mask, 0, _DEAD_KEY_BIT)
@@ -683,17 +458,10 @@ def test_occlusion_sorted(ds: DeviceScene, x, y, mask=None):
 
 def test_occlusion(ds: DeviceScene, x, y):
     """True where segment x->y is blocked (testOcclusion, scene.h:303-334)."""
-    if ds.intersector in MXU_ENGINES:
-        _, occl, tuning = _mxu_engines(ds)
-        return occl(
-            ds.tri_packed, x, y,
-            tri_order=ds.tri_order, cluster_bounds=ds.cluster_bounds,
-            **tuning,
-        )
     if ds.intersector == "pallas_brute":
-        from ..accel.pallas_kernels import occlusion_brute_pallas
+        from ..accel.brute_triton import occlusion_brute_triton
 
-        return occlusion_brute_pallas(ds.tri_packed, x, y)
+        return occlusion_brute_triton(ds.tri_packed, x, y)
     if ds.intersector == "bvh":
         return trv.occlusion_bvh(ds.leaf_tris, ds.leaf_map, ds.bvh_packed, x, y)
     return trv.occlusion_brute(ds.tri_packed, x, y)
@@ -905,15 +673,13 @@ def sample_direct_light(ds: DeviceScene, pos, r4, mask=None, sort=True,
     Returns (radiance, wi, pdf); pdf <= 0 when invalid or occluded.
 
     ``mask``: lanes that cannot use the sample anyway (dead paths, delta
-    BSDFs) skip the shadow sweep via degenerate segments + block culling.
+    BSDFs) skip the shadow sweep via degenerate (zero-length) segments.
     ``sort=False`` skips the shadow-ray signature sort — pass it when the
     caller's lanes are already coherently ordered (permuted wavefront).
     ``shade_normal``: the (flipped) shading normal at ``pos``; lanes whose
     light sample lies at or below the horizon contribute exactly zero
     (every caller multiplies by sat_dot(normal, wi)), so they skip the
-    shadow sweep too — after the signature sort, dead lanes pack together
-    and cost almost nothing, and a hemisphere kills ~30-50% of bounce
-    shadow rays on the benchmark scenes."""
+    shadow sweep too (after the signature sort, dead lanes pack together)."""
     radiance, wi, dist, pdf = sample_direct_light_no_vis(ds, pos, r4)
     ok = pdf > 0.0
     if mask is not None:

@@ -1,23 +1,27 @@
 """Persistent XLA compilation cache setup.
 
-First compiles are minutes-long on small hosts (and ~20-40s on TPU); caching
-compiled executables on disk makes every subsequent process start fast.
-Called from the CLI, bench harness, and test conftest.
+Caching compiled executables on disk makes every process after the first
+start fast.  Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself
+and this module sets no directory; otherwise the cache lives at the fixed
+path ``<checkout>/.jax_cache`` (git-ignored).  Called from the CLI, the
+bench harness, ``chip_smoke.py`` and the test conftest.
 """
 
 from __future__ import annotations
 
 import os
 
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
-def enable_persistent_cache(cache_dir: str | None = None) -> None:
+
+def enable_persistent_cache() -> None:
     import jax
 
-    path = cache_dir or os.environ.get(
-        "RADISH_XLA_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "radish_pt_tpu", "xla"),
-    )
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)

@@ -1,35 +1,36 @@
-"""Row-fetch strategies tuned to the TPU gather cost model.
+"""Row-fetch strategies for small per-lane table lookups.
 
-Measured on v5e (tools/microbench.py, BASELINE.md): a divergent gather costs
-~3-8 ns per ROW regardless of row width, so
+The premise is a cost model in which a divergent gather costs per ROW,
+nearly regardless of row width, so
 
 * fetch all of a record in ONE packed wide row rather than several narrow
-  tables (5 gathers -> 1 is a 5x win), and
+  tables, and
 * for tiny tables (a scene's 2 area lights, 5 materials) a branchless
-  compare/select chain over the rows beats the gather entirely
-  (~L*row_width vector ops vs ~5 ms per 640k-lane gather).
+  compare/select chain over the rows replaces the gather entirely.
+
+Whether either still pays against a plain ``table[idx]`` on the GPU is not
+measured (ROADMAP Speed 5).
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 
-# Above this many rows the select chain's L*width ops cost more than a
-# divergent gather; measured crossover is ~8-16 rows for 16-wide rows.
+# Above this many rows the select chain's L*width ops are assumed to cost
+# more than a divergent gather.
 SMALL_TABLE_MAX_ROWS = 8
 
 # Between the select-chain limit and this, an f32 gather is a ONE-HOT
-# MATMUL: (idx == iota) [N, L] @ table [L, W] rides the MXU (~0.2 ms at
-# 640k lanes) vs ~5 ms for the divergent row gather.  Above ~256 rows the
-# [N, L] one-hot construction (VPU compares) starts to dominate and the
-# gather wins again.
+# MATMUL: (idx == iota) [N, L] @ table [L, W], at ``precision="highest"`` so
+# the result is the exact f32 row (no TF32 rounding).  Above this size the
+# [N, L] one-hot construction is assumed to dominate.
 ONEHOT_TABLE_MAX_ROWS = 256
 
 
 def take_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """``table[idx]`` for f32/i32 ``table [L, W]``, ``idx i32 [N]``.
 
-    Strategy by table size: select chain (<=8 rows) -> one-hot MXU matmul
+    Strategy by table size: select chain (<=8 rows) -> one-hot matmul
     (f32 2D tables <=256 rows) -> real gather.
 
     Contract: out-of-range ``idx`` is clamped to [0, L-1] (matching XLA

@@ -1,10 +1,10 @@
-"""TPU-native math library for the path tracer.
+"""Batched math library for the path tracer.
 
 JAX re-design of the reference's header-only CUDA math library
 (``/root/reference/src/mathUtil.h:29-207``).  Every function is a pure,
 batched ``jnp`` function operating on arrays whose *last* axis holds the
 vector components, so the same code vectorizes over a whole wavefront of
-rays/pixels (TPU VPU lanes) instead of one CUDA thread.
+rays/pixels instead of one CUDA thread.
 
 Host-side helpers (transform matrices) live at the bottom and use numpy.
 """

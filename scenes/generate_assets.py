@@ -12,10 +12,14 @@ Run from the repo root:  python scenes/generate_assets.py
 from __future__ import annotations
 
 import os
+import sys
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))  # the repo root: radish_pt_tpu
+
+from radish_pt_tpu.scene.image_io import write_hdr, write_png  # noqa: E402
 MODELS = os.path.join(HERE, "models")
 TEXTURES = os.path.join(HERE, "textures")
 
@@ -186,15 +190,11 @@ def make_sphere(subdiv: int = 32):
 
 
 def make_checker(size: int = 256, tiles: int = 8):
-    from PIL import Image
-
     y, x = np.mgrid[0:size, 0:size]
     c = (((x * tiles // size) + (y * tiles // size)) % 2).astype(np.float32)
     img = 0.12 + 0.75 * c
     rgb = np.stack([img, img * 0.92, img * 0.8], -1)
-    Image.fromarray((rgb * 255).astype(np.uint8)).save(
-        os.path.join(TEXTURES, "checker.png")
-    )
+    write_png(os.path.join(TEXTURES, "checker.png"), (rgb * 255).astype(np.uint8))
     print("wrote checker.png")
 
 
@@ -202,8 +202,6 @@ def make_normal_map(size: int = 256, bumps: int = 6):
     """Tangent-space normal map: a lattice of smooth hemispherical bumps,
     encoded as rgb = n * 0.5 + 0.5 (decoded by get_textured_material).
     Flat regions encode exactly (0.5, 0.5, 1.0)."""
-    from PIL import Image
-
     y, x = np.mgrid[0:size, 0:size]
     # position inside each bump cell in [-1, 1]
     u = ((x + 0.5) / size * bumps) % 1.0 * 2 - 1
@@ -217,30 +215,22 @@ def make_normal_map(size: int = 256, bumps: int = 6):
     n = np.stack([nx, ny, nz], -1)
     n /= np.linalg.norm(n, axis=-1, keepdims=True)
     rgb = n * 0.5 + 0.5
-    Image.fromarray((rgb * 255).round().astype(np.uint8)).save(
-        os.path.join(TEXTURES, "normal_bumps.png")
-    )
+    write_png(os.path.join(TEXTURES, "normal_bumps.png"), (rgb * 255).round().astype(np.uint8))
     print("wrote normal_bumps.png")
 
 
 def make_rough_gradient(size: int = 256):
     """Horizontal roughness gradient: smooth (0.05) at u=0 -> rough (~1) at
     u=1, linear in u, all three channels equal (samplers read R)."""
-    from PIL import Image
-
     x = np.arange(size, dtype=np.float32)
     g = 0.05 + 0.95 * (x + 0.5) / size
     img = np.broadcast_to(g[None, :, None], (size, size, 3))
-    Image.fromarray((img * 255).round().astype(np.uint8)).save(
-        os.path.join(TEXTURES, "rough_gradient.png")
-    )
+    write_png(os.path.join(TEXTURES, "rough_gradient.png"), (img * 255).round().astype(np.uint8))
     print("wrote rough_gradient.png")
 
 
 def make_aperture_star(size: int = 128, points: int = 5):
     """Star-shaped aperture mask (bright = open)."""
-    from PIL import Image
-
     y, x = np.mgrid[0:size, 0:size]
     u = (x + 0.5) / size * 2 - 1
     v = (y + 0.5) / size * 2 - 1
@@ -250,15 +240,12 @@ def make_aperture_star(size: int = 128, points: int = 5):
     star = 0.55 + 0.42 * np.cos(points * ang)
     mask = (r < star * 0.95).astype(np.float32)
     rgb = np.repeat(mask[..., None], 3, -1)
-    Image.fromarray((rgb * 255).astype(np.uint8)).save(
-        os.path.join(TEXTURES, "aperture_star.png")
-    )
+    write_png(os.path.join(TEXTURES, "aperture_star.png"), (rgb * 255).astype(np.uint8))
     print("wrote aperture_star.png")
 
 
 def make_sky_hdr(w: int = 256, h: int = 128):
     """Procedural sky: blue gradient + warm sun disk, saved as Radiance HDR."""
-    import imageio.v3 as iio
 
     y, x = np.mgrid[0:h, 0:w]
     u = (x + 0.5) / w  # azimuth [0,1]
@@ -277,7 +264,7 @@ def make_sky_hdr(w: int = 256, h: int = 128):
     d2 = (du * 2) ** 2 + dv**2
     sun = np.exp(-d2 / (2 * 0.012**2))[..., None] * np.array([900.0, 700.0, 420.0])
     img = (sky + sun).astype(np.float32)
-    iio.imwrite(os.path.join(TEXTURES, "sky.hdr"), img)
+    write_hdr(os.path.join(TEXTURES, "sky.hdr"), img)
     print("wrote sky.hdr")
 
 

@@ -1,5 +1,5 @@
 """Multi-host (multi-process) rendering test: 2 CPU processes with Gloo
-collectives stand in for a multi-host TPU pod (the standard JAX pattern).
+collectives stand in for a multi-host cluster (the standard JAX pattern).
 The global-mesh sharded render must equal the single-device render."""
 
 import os

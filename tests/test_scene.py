@@ -131,78 +131,12 @@ def test_env_scene_build():
 
     ds, cam, desc = load_scene(os.path.join(SCENES, "env_teapot.txt"))
     assert ds.has_env
-    assert ds.use_bvh  # teapot is big enough
+    assert ds.intersector == "bvh"  # teapot is big enough
     # env pdf is positive toward the sun
     wi = jnp.asarray(np.array([[0.0, 1.0, 0.0]], np.float32))
     assert float(dsc.env_map_pdf(ds, wi)[0]) > 0
     # alias table covers area lights + env slot
     assert ds.light_alias_prob.shape[0] == ds.n_area_lights + 1
-
-
-def test_compact_intersector_dispatch(monkeypatch):
-    """ds.intersector == 'pallas_compact' must route intersect /
-    intersect_sorted / test_occlusion through the compact kernels (wiring
-    test — kernel parity is covered in tests/test_pallas.py)."""
-    import jax.numpy as jnp
-
-    from radish_pt_tpu.accel import traverse as trv
-    from radish_pt_tpu.scene import build as sbuild
-    from radish_pt_tpu.scene import device_scene as dsc
-    from radish_pt_tpu.scene.parser import parse_scene
-
-    ds, cam = sbuild.build_device_scene(parse_scene("scenes/teapot.txt"))
-    ds = ds.replace(intersector="pallas_compact")
-    calls = []
-
-    def fake_isect(tp, o, d, tri_order=None, cluster_bounds=None, tmax=None,
-                   **kw):
-        calls.append("intersect")
-        assert cluster_bounds is not None
-        p, t, _ = trv.intersect_brute(tp, o, d)
-        return p, t
-
-    def fake_occl(tp, x, y, tri_order=None, cluster_bounds=None, **kw):
-        calls.append("occlusion")
-        assert cluster_bounds is not None
-        return trv.occlusion_brute(tp, x, y)
-
-    import radish_pt_tpu.accel.pallas_kernels as pk
-    monkeypatch.setattr(pk, "intersect_plucker_compact", fake_isect)
-    monkeypatch.setattr(pk, "occlusion_plucker_compact", fake_occl)
-
-    rng = np.random.default_rng(9)
-    n = 256
-    o = jnp.asarray(rng.uniform(-3, 3, size=(n, 3)).astype(np.float32))
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    d = jnp.asarray(d)
-    p0, _, _ = trv.intersect_brute(ds.tri_packed, o, d)
-    it = dsc.intersect(ds, o, d)
-    np.testing.assert_array_equal(np.asarray(it.prim_id), np.asarray(p0))
-    it_s = dsc.intersect_sorted(ds, o, d)
-    np.testing.assert_array_equal(np.asarray(it_s.prim_id), np.asarray(p0))
-    occ = dsc.test_occlusion(ds, o, o + d * 2.0)
-    assert occ.shape == (n,)
-    assert calls == ["intersect", "intersect", "occlusion"]
-
-
-def test_big_scene_picks_mxu_scan(monkeypatch):
-    """Scene build keeps the MXU scan up to PALLAS_MXU_MAX_TRIS (raised to
-    131072 in round 2 — at 111k tris the scan with tile-order lanes beats
-    the compact engine, whose fine-granularity flag counts overflow any
-    SMEM-fittable work budget) and only goes compact beyond it."""
-    import radish_pt_tpu.accel.pallas_kernels as pk
-    from radish_pt_tpu.scene import build as sbuild
-
-    monkeypatch.setattr(pk, "pallas_available", lambda: True)
-    # a real 111k-tri scene builds with the scan intersector + clusters
-    from radish_pt_tpu.scene.parser import parse_scene
-    import os
-    if os.path.exists("scenes/teapot_hires.txt"):
-        ds, cam = sbuild.build_device_scene(
-            parse_scene("scenes/teapot_hires.txt"))
-        assert ds.intersector == "pallas_mxu"
-        assert ds.cluster_bounds is not None
 
 
 @pytest.mark.slow

@@ -6,9 +6,9 @@ persistent cache pointed at a THROWAWAY directory (a true cold compile),
 then reports the warm (persistent-cache) reload time from a second
 process-level compile against the real cache.
 
-Usage: RADISH_XLA_CACHE_DIR=/tmp/cold_cache_$$ python tools/compile_time.py scenes/teapot.txt [depth]
-(The default cache dir is ~/.cache/radish_pt_tpu/xla — do NOT point this
-tool there unless you want to seed it.)
+Usage: JAX_COMPILATION_CACHE_DIR=/tmp/cold_cache_$$ python tools/compile_time.py scenes/teapot.txt [depth]
+(Without the variable the cache is the checkout's .jax_cache/ — do NOT use
+that unless you want to seed it.)
 """
 
 import os
@@ -39,7 +39,7 @@ def main():
     compiled = lowered.compile()
     t2 = time.perf_counter()
     print(f"{scene} depth={depth} cache_dir="
-          f"{os.environ.get('RADISH_XLA_CACHE_DIR', '(default)')}")
+          f"{os.environ.get('JAX_COMPILATION_CACHE_DIR', '.jax_cache')}")
     print(f"  trace+lower: {t1 - t0:7.1f} s")
     print(f"  compile:     {t2 - t1:7.1f} s")
     del compiled

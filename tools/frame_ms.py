@@ -25,8 +25,7 @@ from radish_pt_tpu.scene.parser import parse_scene  # noqa: E402
 
 
 def _sync(out):
-    leaf = jax.tree_util.tree_leaves(out)[0]
-    return float(np.asarray(leaf.reshape(-1)[0]))
+    return jax.block_until_ready(out)
 
 
 def timeit(fn, *a, n_warm=2, n_iter=6):

@@ -26,6 +26,9 @@ def main():
     ap.add_argument("--coordinator", required=True)
     ap.add_argument("--num-processes", type=int, required=True)
     ap.add_argument("--process-id", type=int, required=True)
+    ap.add_argument("--local-device-ids", type=int, nargs="*", default=None,
+                    help="cards of this host owned by this process (when "
+                    "several processes share a host)")
     ap.add_argument("--spp", type=int, default=8)
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--res", type=int, nargs=2, default=None)
@@ -36,7 +39,8 @@ def main():
 
     from radish_pt_tpu.parallel import multihost as mh
 
-    mh.initialize(args.coordinator, args.num_processes, args.process_id)
+    mh.initialize(args.coordinator, args.num_processes, args.process_id,
+                  args.local_device_ids)
 
     import jax
 

@@ -28,8 +28,7 @@ from radish_pt_tpu.scene.parser import parse_scene
 
 
 def sync(out):
-    leaves = jax.tree_util.tree_leaves(out)
-    return float(np.asarray(leaves[0]).reshape(-1).view(np.uint8)[0])
+    return jax.block_until_ready(out)
 
 
 def t_ms(f, *args, n_warm=2, n_iter=4):

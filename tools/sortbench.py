@@ -6,7 +6,6 @@ state between pixel order and coherence order:
 
   A. lax.sort with p payload columns (current design: p=8 fwd, p=3 inv)
   B. lax.sort (key, lane) only + ONE divergent packed-row gather
-     (gathers cost ~8 ns per divergent ROW, almost independent of width)
   C. inverse permutation via scatter (out.at[lane_s].set(vals)) instead of
      a second sort
 
@@ -33,8 +32,7 @@ N = 640_000
 
 
 def sync(out):
-    leaves = jax.tree_util.tree_leaves(out)
-    return float(np.asarray(leaves[0]).reshape(-1).view(np.uint8)[0])
+    return jax.block_until_ready(out)
 
 
 def slope(name, fn, x0, *args, khi=6, n_iter=3):
